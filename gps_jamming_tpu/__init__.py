@@ -1,6 +1,6 @@
-"""gps_jamming_tpu — TPU-native GNSS interference detection & localization.
+"""gps_jamming_tpu — GNSS interference detection & localization in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A JAX/XLA framework with the capabilities of the reference
 GPS-JAMMING system (see SURVEY.md): uint8 I/Q ingest, streaming Welch/FFT
 spectral estimation, multi-flag jamming detection, CAF/TDOA/RSSI jammer
 localization, a GPS L1 C/A receiver chain (acquisition/tracking/nav/PVT), and

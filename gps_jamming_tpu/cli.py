@@ -311,6 +311,8 @@ def cmd_receiver(args) -> int:
              "peak_ratio": round(c.peak_ratio, 2),
              "cn0_dbhz": round(c.cn0_dbhz, 1)}
             for c in res.channels if c.acquired],
+        "tracked_s": {str(k): round(v, 3) for k, v in
+                      _tracked_seconds(res).items()},
         "decoded_prns": [c.prn for c in res.channels
                          if c.obs is not None
                          and rx_mod._eph_complete(args.system, c.obs.eph)],
@@ -326,6 +328,14 @@ def cmd_receiver(args) -> int:
     }
     print(json.dumps(out, default=_np_default, indent=2))
     return 0
+
+
+def _tracked_seconds(res) -> dict:
+    """Seconds each satellite spent in a tracking slot (sat id -> s)."""
+    out: dict = {}
+    for sat, start, end in res.tracked_spans or []:
+        out[sat] = out.get(sat, 0.0) + (end - start) * res.epoch_ms * 1e-3
+    return dict(sorted(out.items()))
 
 
 def cmd_serve(args) -> int:
@@ -517,16 +527,19 @@ def cmd_benchmark(args) -> int:
     constellation, and/or weak-scaling sweep."""
     from .runtime import benchmarks
     out = {}
+    # the sweep runs first, in child processes, while this process has not
+    # touched a device: a JAX process reserves most of every card's memory
+    # when it starts using them, which would starve the children
+    if args.scaling:
+        counts = [int(v) for v in args.scaling.split(",")]
+        out["weak_scaling"] = benchmarks.weak_scaling(
+            counts, platform=args.platform)
     if not args.no_single:
         out["single_chip"] = benchmarks.single_chip()
     if args.receiver:
         out["receiver_chain"] = [
             benchmarks.receiver_chain(sys_, seconds=args.seconds)
             for sys_ in args.receiver.split(",")]
-    if args.scaling:
-        counts = [int(v) for v in args.scaling.split(",")]
-        out["weak_scaling"] = benchmarks.weak_scaling(
-            counts, platform=args.platform)
     print(json.dumps(out, default=_np_default, indent=2))
     return 0
 
@@ -596,7 +609,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "all-gathered F1 profiles, sharded PCF "
                         "acquisition + pair xcorr (virtual CPU mesh via "
                         "XLA_FLAGS=--xla_force_host_platform_device_"
-                        "count=N, or real chips)")
+                        "count=N, or real GPUs)")
     d.set_defaults(fn=cmd_detect)
 
     loc = sub.add_parser("localize", help="RSSI + TDOA localization")
@@ -760,8 +773,8 @@ def build_parser() -> argparse.ArgumentParser:
     bm = sub.add_parser("benchmark",
                         help="flagship throughput + weak scaling")
     bm.add_argument("--scaling", help="comma device counts, e.g. 1,2,4,8 "
-                    "(virtual CPU mesh unless --platform tpu)")
-    bm.add_argument("--platform", default="cpu", choices=["cpu", "tpu"],
+                    "(virtual CPU mesh unless --platform gpu)")
+    bm.add_argument("--platform", default="cpu", choices=["cpu", "gpu"],
                     help="backend for the scaling meshes")
     bm.add_argument("--no-single", action="store_true",
                     help="skip the single-chip flagship measurement")
@@ -782,6 +795,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from .runtime.compile_cache import enable_compile_cache
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -55,11 +55,10 @@ class AcquisitionConfig:
     peak_ratio_threshold: float = 3.0    # ACQTH
     exclude_chips: float = 2.0           # second-peak exclusion half-width
     # 'std' = reference-shaped per-Doppler non-coherent search;
-    # 'pcf' = post-correlation-FFT factorized search (~3.5x faster on TPU,
-    # finer effective grid); 'auto' (default since r4) picks pcf when its
-    # inverse-row count wins (GPS 1 ms epochs: yes; Galileo E1B 4 ms: no
-    # — caf.pcf_profitable). GLONASS is unaffected either way: its FDMA
-    # search (glonass.acquire_all) has no PCF form and ignores this knob
+    # 'pcf' = post-correlation-FFT factorized search (~4x fewer inverse
+    # DFTs, finer effective grid); 'auto' (default) picks pcf when its
+    # inverse-row count wins (caf.pcf_profitable). GLONASS picks its FDMA
+    # search form in glonass.acquire_all and ignores this knob
     method: str = "auto"
 
     @property

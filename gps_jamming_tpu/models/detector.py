@@ -1,7 +1,7 @@
 """Jamming detectors: power pre-scan, standalone chunk detector, and the
 4-flag event state machine.
 
-TPU-native re-expression of the reference's Python detector stack:
+Batched re-expression of the reference's Python detector stack:
 - `precalculate_power_profile` (worker.py:198-275): full-capture chunk power
   map -> 5th-percentile baseline -> +6 dB ITU-R threshold -> high-power byte
   ranges. Here: one jitted batched reduction.

@@ -1,10 +1,10 @@
 """GNSS signal acquisition: batched CAF search over (PRN x Doppler x lag).
 
-TPU-native re-design of `sdracq.c` + `pcorrelator` (sdrcmn.c:742-773): the
+Batched re-design of `sdracq.c` + `pcorrelator` (sdrcmn.c:742-773): the
 reference spawns one pthread per PRN, each sequentially evaluating 71 Doppler
 rows of a 2048-lag FFT correlation and integrating 10 code periods. Here the
-whole constellation is acquired in ONE batched kernel: (32 PRN x 71 Doppler x
-2048 lag x 10 integrations) evaluated as batched MXU DFT matmuls
+whole constellation is acquired in ONE batched computation: (32 PRN x 71
+Doppler x 2048 lag x 10 integrations) evaluated as batched FFTs
 (ops.caf/ops.fftcore), then the peak-ratio test of `checkacquisition`
 (sdracq.c:52-81) vectorized over PRNs.
 """
@@ -43,8 +43,8 @@ def gps_replica_table(sample_rate: float, n_samples: int) -> jax.Array:
 
 
 def gps_replica_table_host(sample_rate: float, n_samples: int):
-    """Host-precomputed planar replica table (TPU path): CArray of numpy
-    (re, im) planes, safe to close over in jitted kernels."""
+    """Host-precomputed planar replica table: CArray of numpy (re, im)
+    planes, safe to close over in jitted kernels."""
     from ...ops import cplx
     re, im = codes_ops.sampled_code_fft_conj_host(
         codes_ops.gps_ca_table(), C.GPS_CA_CHIP_RATE_HZ, sample_rate,
@@ -65,14 +65,11 @@ def acquire_all(blocks, replica_fft_conj,
                 sample_rate: float, cfg: AcquisitionConfig,
                 code_period_s: float = C.GPS_CA_PERIOD_S,
                 code_len_chips: float = 1023.0,
-                precision: str | None = None,
                 method: str = "std") -> AcquisitionResult:
     """Acquire every PRN from `n_integration` code-period blocks.
 
     blocks: (n_intg, n_samples) complex or CArray baseband, one code period
     each. replica_fft_conj: (n_prn, n_samples) complex or CArray.
-    precision: static operand-precision override for the fused CAF kernel
-    (None -> `ops.caf.ACQ_FUSED_PRECISION` policy).
     method: 'std' = the reference-shaped per-Doppler non-coherent search
     (sdracq.c:15-27); 'pcf' = post-correlation-FFT factorized search
     (caf.caf_accumulate_pcf) — ~4x fewer inverse DFTs, 5 ms coherent
@@ -94,31 +91,6 @@ def acquire_all(blocks, replica_fft_conj,
         # non-coherent surface lacks; the effective coherent integration
         # time is gl * Tcode (peak ~ G*(gl*A)^2 vs noise ~ G*gl*sigma^2).
         gl = blocks.shape[-2] // 2
-        n = blocks.shape[-1]
-        rep = replica_fft_conj
-        if (jax.default_backend() == "tpu"
-                and isinstance(rep, cplx.CArray)
-                and isinstance(rep.re, np.ndarray)):
-            from ...ops import pallas_caf
-            nprn = rep.re.shape[0]
-            if pallas_caf.pcf_stats_supported(
-                    int(n), nprn, float(cfg.doppler_max_hz),
-                    float(sample_rate)):
-                # in-kernel stats reduction: the delay x Doppler surface
-                # never leaves VMEM; checkacquisition's peak / excluded
-                # second peak / excluded mean arrive pre-reduced
-                nsampchip = max(int(round(n / code_len_chips)), 1)
-                excl = int(cfg.exclude_chips * nsampchip)
-                stats = pallas_caf.caf_accumulate_pcf_fused(
-                    blocks, rep, sample_rate,
-                    max_doppler_hz=cfg.doppler_max_hz,
-                    precision=caf_ops.resolve_acq_precision(None, "v3"),
-                    stats_excl=excl)
-                freqs = jnp.asarray(caf_ops.pcf_doppler_hz(
-                    sample_rate, int(n), cfg.doppler_max_hz))
-                return acquisition_test_from_stats(
-                    stats, freqs, int(n), cfg,
-                    code_period_s * max(gl, 1), code_len_chips)
         surf = caf_ops.caf_accumulate_pcf(blocks, replica_fft_conj,
                                           sample_rate,
                                           max_doppler_hz=cfg.doppler_max_hz)
@@ -131,8 +103,7 @@ def acquire_all(blocks, replica_fft_conj,
         freqs = caf_ops.doppler_bins(cfg.doppler_max_hz,
                                      cfg.doppler_step_hz)
         surf = caf_ops.caf_accumulate(blocks, replica_fft_conj, freqs,
-                                      sample_rate,
-                                      precision=precision)  # (n_prn, nf, n)
+                                      sample_rate)          # (n_prn, nf, n)
         freqs = jnp.asarray(freqs)
     return acquisition_test(surf, freqs, sample_rate, cfg, code_period_s,
                             code_len_chips)
@@ -174,51 +145,12 @@ def acquisition_test(surf: jax.Array, freqs: jax.Array, sample_rate: float,
     )
 
 
-def acquisition_test_from_stats(stats, freqs: jax.Array, n: int,
-                                cfg: AcquisitionConfig,
-                                code_period_s: float,
-                                code_len_chips: float
-                                = 1023.0) -> AcquisitionResult:
-    """`acquisition_test` from pre-reduced per-(PRN, Doppler-row) stats.
-
-    stats: the (max, arglag, excluded_max, total_sum, window_sum)
-    5-tuple of `pallas_caf.caf_accumulate_pcf_fused(stats_excl=...)`,
-    each (n_prn, n_rows). Row/lag tie-breaking matches the surface
-    `acquisition_test` (lowest flat index), and the excluded mean uses
-    the same circular-window count as `corr.mean_excluded`, so the two
-    paths agree on identical inputs (tests/test_pallas_caf.py)."""
-    max1, arg1, exmax, tot, wsum = stats
-    nsampchip = max(int(round(n / code_len_chips)), 1)
-    excl = int(cfg.exclude_chips * nsampchip)
-    freq_i = jnp.argmax(max1, axis=-1)
-
-    def take(a):
-        return jnp.take_along_axis(a, freq_i[:, None], axis=-1)[:, 0]
-
-    peak = take(max1)
-    code_i = take(arg1).astype(jnp.int32)
-    second = take(exmax)
-    keep = max(n - (2 * excl + 1), 1)
-    mean = (take(tot) - take(wsum)) / keep
-    ratio = peak / jnp.maximum(second, 1e-30)
-    cn0 = 10.0 * jnp.log10(peak / jnp.maximum(mean, 1e-30)
-                           / code_period_s)
-    return AcquisitionResult(
-        acquired=ratio > cfg.peak_ratio_threshold,
-        code_phase=code_i,
-        doppler_hz=jnp.take(freqs, freq_i),
-        peak_ratio=ratio,
-        cn0_dbhz=cn0,
-        peak_power=peak,
-    )
-
-
 @functools.partial(jax.jit, static_argnames=("sample_rate", "cfg",
-                                             "code_period_s", "precision"))
+                                             "code_period_s"))
 def acquire_all_jit(blocks, replica_fft_conj, sample_rate, cfg,
-                    code_period_s=C.GPS_CA_PERIOD_S, precision=None):
+                    code_period_s=C.GPS_CA_PERIOD_S):
     return acquire_all(blocks, replica_fft_conj, sample_rate, cfg,
-                       code_period_s, precision=precision)
+                       code_period_s)
 
 
 def refine_doppler(xp, code_table: np.ndarray, lag_samples, doppler_hz,
@@ -253,8 +185,8 @@ def refine_doppler(xp, code_table: np.ndarray, lag_samples, doppler_hz,
     dopp = jnp.asarray(doppler_hz, jnp.float32)
 
     # contiguous per-channel windows: vmapped dynamic_slice instead of an
-    # arbitrary-index gather (TPU gathers serialize; this was half the
-    # refine cost). The input is zero-padded by n_win so a lag near the
+    # arbitrary-index gather (chosen where gathers serialized; not
+    # measured on H100). The input is zero-padded by n_win so a lag near the
     # capture tail keeps its window START at the acquired code boundary
     # (dynamic_slice would otherwise clamp the start and misalign the
     # code wipe-off for the whole window); the zero tail just shortens

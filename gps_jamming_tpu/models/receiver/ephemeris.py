@@ -2,8 +2,8 @@
 
 Host-side float64 numpy, batched over satellites — re-design of `satPos`
 (sdrpvt.c:440-537), which computes one satellite at a time in scalar C.
-Orbital math needs double precision (ECEF ~2.6e7 m at mm residuals) and the
-target TPU has no f64, so like the reference this stays on the host; it is
+Orbital math needs double precision (ECEF ~2.6e7 m at mm residuals), so
+like the reference this stays on the host; it is
 tiny (a handful of flops per satellite per 200 ms PVT epoch) and vectorized
 over the constellation. GLONASS pos/vel/acc extrapolation
 (sdrpvt.c:539-575) is an RK4 integrator over the PZ-90 force model.

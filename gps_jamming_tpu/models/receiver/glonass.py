@@ -95,9 +95,8 @@ def acquire_all(blocks, sample_rate: float, cfg: AcquisitionConfig,
     if method == "pcf":
         # factorized search (ops.caf.caf_accumulate_pcf_fdma): mixes only
         # (channel-sub-bin x set) rows instead of all 14x71 frequency
-        # rows — the direct form's (B, 994, n) complex intermediates were
-        # the dominant cost of the whole GLONASS receiver chain (~3.7 s
-        # per acquisition at 10 MS/s on v5e vs ~0.1 s factorized);
+        # rows — the direct form's (B, 994, n) complex intermediates are
+        # gigabytes at 10 MS/s (speed not measured on H100);
         # 5 ms coherent groups beat the reference's 10x1 ms non-coherent
         # sensitivity (sdracq.c:15-27) on a finer effective grid.
         surf = caf_ops.caf_accumulate_pcf_fdma(

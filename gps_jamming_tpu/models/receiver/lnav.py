@@ -1,7 +1,7 @@
 """GPS LNAV message: parity, frame encode (sim fixtures) and decode.
 
 Host-side numpy bit plumbing — SURVEY.md §7 keeps bit-level nav decode off
-the TPU (hostile op mix); only the soft bit values come from the device
+the accelerator (hostile op mix); only the soft bit values come from the device
 (prompt-I signs out of the tracking scan).
 
 Covers the reference's C8/C9 components:

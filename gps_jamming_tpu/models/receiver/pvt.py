@@ -2,7 +2,7 @@
 
 Host-side float64 re-design of `blsFilter` + helpers (sdrpvt.c:141-401).
 The reference iterates Newton steps with the vendored nml matrix library on
-doubles; the target TPU has no f64 and this solve is tiny (n_sat x 4 normal
+doubles; this solve needs float64 and is tiny (n_sat x 4 normal
 equations at a 200 ms cadence), so — per SURVEY.md §7 ("PVT on host or tiny
 jitted solve") — it runs on the host, vectorized over satellites. Includes:
 - Sagnac (earth-rotation) correction of satellite positions

@@ -2,7 +2,7 @@
 
 Orchestration equivalent of the reference's per-channel pthread state
 machine + sync thread (`sdrmain.c:248-400`, `sdrsync.c:3-208`), re-designed
-for TPU execution: the per-thread sequential loops collapse into
+for batched device execution: the per-thread sequential loops collapse into
   1. ONE batched acquisition kernel over (PRN x Doppler x lag) on device,
   2. ONE `lax.scan` tracking all acquired channels simultaneously on device,
   3. host-side bit/frame decode + pseudorange formation (float64),

@@ -1,6 +1,6 @@
 """Code/carrier tracking: scan-structured PLL/DLL/FLL channel loops.
 
-TPU-native re-design of `sdrtrk.c` (+ `correlator`, sdrcmn.c:707-740). The
+Batched re-design of `sdrtrk.c` (+ `correlator`, sdrcmn.c:707-740). The
 reference runs one pthread per channel, each epoch grabbing a variable-length
 window (`currnsamp`) so every correlation spans exactly one code period, then
 updating PLL/DLL NCOs (sdrtrk.c:66-109). That variable-length grab is hostile
@@ -15,7 +15,7 @@ Structure: `lax.scan` over epochs; the carry is batched over channels so one
 scan tracks the whole constellation. Per epoch, per channel:
   1. carrier wipe-off: planar NCO phasor (mixcarr, sdrcmn.c:581-705),
   2. tap correlations: (2*n_taps+1) shifted code replicas x mixed signal as
-     one matmul on the MXU (dot_21/22/23, sdrcmn.c:251-358),
+     one batched contraction (dot_21/22/23, sdrcmn.c:251-358),
   3. discriminators + 2nd-order loop filters (pll/dll, sdrtrk.c:66-109) with
      the 0.53-rule coefficients of sdrinit.c:187-207,
   4. FLL assist during pull-in, switch to locked bandwidths after
@@ -154,8 +154,8 @@ def _tap_correlate(x: cplx.CArray, code_table: jax.Array, state: TrackState,
     Returns (I, Q) of shape (n_ch, 2*n_taps+1), taps ordered
     [-n_taps..+n_taps] * tap_spacing samples (early -> late).
 
-    NOTE: the per-epoch (n_ch, n_tap, n) gather serializes on TPU; the
-    tracker uses the shift-based `_tap_correlate_base` fast path whenever
+    NOTE: the tracker uses the shift-based `_tap_correlate_base` path,
+    which needs no per-epoch (n_ch, n_tap, n) gather, whenever
     the code period is an integer number of samples (all supported
     front-end configs). This exact path remains the oracle/fallback.
     """
@@ -211,15 +211,15 @@ def _tap_correlate_base(x: cplx.CArray, base3: jax.Array, state: TrackState,
                         n_taps: int, tap_spacing: int, sample_rate: float,
                         chip_rate: float, n_period: int
                         ) -> tuple[jax.Array, jax.Array]:
-    """Shift-based all-tap correlation (TPU fast path, no per-epoch gather).
+    """Shift-based all-tap correlation (fast path, no per-epoch gather).
 
     The replica at code phase `rem` is a circular shift of the
     base-resampled code by sigma = rem/cps samples. The integer part is one
     dynamic slice per channel from the tiled base table; the fractional
     part linearly blends two adjacent shifts — a first-order-interpolated
     resampler, smoother than the reference's nearest-neighbor `rescode`
-    (the DLL discriminator stays continuous in code phase). ~20x faster
-    per epoch than the exact gather on v5e.
+    (the DLL discriminator stays continuous in code phase). Chosen for
+    the earlier accelerator's serialized gathers; not measured on H100.
     """
     n = x.shape[-1]
     cps0 = chip_rate / sample_rate
@@ -461,12 +461,12 @@ def make_tracker(code_table: np.ndarray, sample_rate: float,
             n_epochs = int((x.shape[-1] - int(np.max(start_offsets)))
                            // n_epoch)
 
-        # chunked window gather: the per-EPOCH vmapped dynamic_slice was
-        # ~60% of the whole scan on v5e and scaled linearly with slots
-        # (TPU gathers serialize). Gather K epochs per slot in one
+        # chunked window gather: gather K epochs per slot in one
         # contiguous slice per outer step, then feed the K per-epoch
         # windows to the inner scan as xs (leading-axis scan slices are
-        # free) — identical windows, K-fold fewer gathers.
+        # free) — identical windows, K-fold fewer gathers than a per-epoch
+        # vmapped dynamic_slice (an earlier-accelerator choice, where
+        # gathers serialized; not measured on H100).
         K = 1
         for cand in range(min(16, n_epochs), 0, -1):
             if n_epochs % cand == 0:

@@ -1,14 +1,14 @@
 """RSSI path-loss ranging + grid-search jammer localization.
 
-TPU-native re-design of `skrypty/triangulateRSSI.py` (+ the heatmap variant
+Batched re-design of `skrypty/triangulateRSSI.py` (+ the heatmap variant
 `triangulateRSSIplot.py` and the single-antenna `CalculateDistance.py`):
 
 - per-antenna ranging: turn-on detection -> mean amplitude -> received power
   -> log-distance inversion (triangulateRSSI.py:54-82) as one jitted kernel;
 - localization: the 300x300 error-surface grid search (:88-120) is a pure
   broadcast — evaluated on-device in one shot (the reference loops in
-  Python/NumPy). The default grid matches the reference for parity; TPU has
-  headroom for much denser grids (see `grid_search` density arg);
+  Python/NumPy). The default grid matches the reference for parity; the
+  device has headroom for much denser grids (see `grid_search` density arg);
 - heatmap variant: full error surface + top-k distinct local minima >= 5 m
   apart (triangulateRSSIplot.py:64-133).
 

@@ -1,7 +1,7 @@
 """TDOA jammer localization: onset sync, cross-correlation, lag -> AoA,
 plus multi-pair hyperbolic fusion via the CAF kernel.
 
-TPU-native re-design of `skrypty/triangulateTDOA.py`:
+Batched re-design of `skrypty/triangulateTDOA.py`:
 - coarse sync by interference onset (:37-49) — ops.power.find_onset;
 - cross-correlation of aligned slices (:80-89) — batched FFT xcorr over all
   antenna pairs at once (the reference does one pair in scipy);

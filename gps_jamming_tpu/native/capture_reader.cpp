@@ -1,9 +1,9 @@
 // Native capture reader: async-prefetch ring buffer for RTL-SDR captures.
 //
-// TPU-native re-design of the reference's receiver layer (sdrrcv.c:3-107 +
+// Native re-design of the reference's receiver layer (sdrrcv.c:3-107 +
 // datathread, sdrmain.c:402-415): a producer pthread streams the uint8
 // interleaved-I/Q file into a ring of fixed-size blocks, doing the byte
-// work the device runtime cannot (uint8 -> int8 via XOR 0x80, matching the
+// work the device path leaves to the host (uint8 -> int8 via XOR 0x80, matching the
 // -128 offset of sdrrcv.c:104-106, and optional deinterleave into planar
 // I/Q planes — the layout the planar-complex device path ingests), and
 // prepends an overlap-save halo of the previous block's tail so FFT /

@@ -1,15 +1,2 @@
 from . import caf, codes, corr, geodesy, interp, iq, pathloss, power, spectral
 from . import fftcore
-
-
-def set_compute_precision(name: str) -> None:
-    """One knob for MXU operand precision everywhere.
-
-    Sets both the spectral/DFT path (`fftcore.set_precision`) and the fused
-    Pallas acquisition policy (`caf.set_acq_precision`). 'f32' = exact
-    (bit-level surface comparisons), 'bf16' = native-rate MXU matmuls with
-    f32 accumulation. Call before the first jitted acquisition — the policy
-    is captured at trace time.
-    """
-    fftcore.set_precision(name)
-    caf.set_acq_precision(name)

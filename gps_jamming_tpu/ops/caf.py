@@ -4,8 +4,7 @@ The flagship batched kernel of the framework. Generalizes the reference's
 acquisition correlator (`pcorrelator` + `cpxconv`, sdrcmn.c:124-147/:742-773),
 which evaluates one (Doppler, all-lags) row at a time per channel thread, into
 a single batched computation over (channel/PRN x Doppler x lag) that XLA maps
-onto large batched FFTs — the natural TPU formulation (SURVEY.md §2 TPU
-mapping notes).
+onto large batched FFTs (cuFFT on the GPU).
 
 Two flavours:
 - `caf_surface`: signal vs precomputed replica FFT (GNSS acquisition).
@@ -67,106 +66,14 @@ def caf_surface(x, replica_fft_conj, freqs: jax.Array,
     return fftcore.ifft_power_p(prod)
 
 
-# Operand precision policy for the fused acquisition kernels.
-#
-# "auto" resolves per dispatched kernel:
-#   - the lane-resident v2 kernel (`pallas_caf.caf_accumulate_fused_v2`) is
-#     MXU-flop bound, and bf16 operands run the MXU at native rate — measured
-#     7x kernel speedup on v5e. The CAF is a noncoherent POWER surface
-#     consumed by a peak-ratio >= 3.0 test (sdracq.c:52-81); a ~3-digit
-#     operand mantissa perturbs the peak by <0.1 dB, far below the noise
-#     floor that sets the detection threshold. auto -> bf16.
-#   - the v1 kernel (fallback for sizes v2 cannot factor) is layout-bound:
-#     bf16 operands give no speedup there, so auto -> f32 (no accuracy loss
-#     for no gain).
-#   - if the user pinned `fftcore.set_precision(...)`, that choice governs
-#     the fused path too (one knob: `ops.set_compute_precision` sets both).
-#
-# An explicit `precision=` argument to `caf_accumulate` overrides everything
-# (it is a static/trace-time choice — see `set_acq_precision` note).
-ACQ_FUSED_PRECISION = "auto"
-
-
-def set_acq_precision(name: str) -> None:
-    """Set the fused-acquisition precision policy: 'auto', 'f32' or 'bf16'.
-
-    NOTE: this module global is read at TRACE time by jitted callers
-    (e.g. `acquire_all_jit`). Calling it after a signature has already been
-    compiled does not retrace — prefer passing `precision=` explicitly
-    through `acquire_all`/`caf_accumulate` (it is a static argument), or
-    call this before the first acquisition.
-    """
-    global ACQ_FUSED_PRECISION
-    if name not in ("auto", "f32", "bf16"):
-        raise ValueError(name)
-    ACQ_FUSED_PRECISION = name
-
-
-def resolve_acq_precision(precision: str | None, kernel: str) -> str:
-    """Resolve an acquisition precision request for a given kernel
-    ('v1'/'v2'/'v3').
-
-    Explicit request > pinned fftcore precision > per-kernel auto default
-    (bf16 for the MXU-bound v2/v3, f32 for the layout-bound v1)."""
-    p = ACQ_FUSED_PRECISION if precision is None else precision
-    if p != "auto":
-        return p
-    if fftcore.precision_pinned():
-        return fftcore.get_precision()
-    return "f32" if kernel == "v1" else "bf16"
-
-
-def fused_dispatch(n: int, n_prn: int = 0) -> str | None:
-    """Which fused Pallas kernel (if any) handles block length n on TPU.
-
-    v3 (lane-merged PRN x k1 — no C-sized relayouts) when the factorization
-    allows it, else v2 (lane-resident, >= 64-wide relayouts), else v1.
-    """
-    from . import pallas_caf
-    if n_prn and pallas_caf.supported_v3(n, n_prn):
-        return "v3"
-    if pallas_caf.supported_v2(n):
-        return "v2"
-    if pallas_caf.supported(n):
-        return "v1"
-    return None
-
-
 def caf_accumulate(blocks, replica_fft_conj, freqs,
-                   sample_rate: float, *,
-                   precision: str | None = None) -> jax.Array:
+                   sample_rate: float) -> jax.Array:
     """Non-coherent accumulation of CAF power over integration blocks.
 
     blocks: (n_blocks, n). Equivalent to the reference's `intg`-fold
     accumulation loop in `sdraqcuisition` (sdracq.c:15-27) but evaluated as
     one batched op and summed.
-
-    When running on TPU with host-resident (numpy) replica planes and
-    concrete Doppler bins, dispatches to a fused Pallas kernel
-    (`ops.pallas_caf`) that keeps the (block x PRN x Doppler) product and
-    inverse DFT in VMEM instead of materializing ~GBs in HBM — the
-    lane-resident v2 kernel when the block length factors for it, else v1.
-    `precision` (static): None -> `ACQ_FUSED_PRECISION` policy (see above).
     """
-    if (jax.default_backend() == "tpu"
-            and isinstance(freqs, np.ndarray)
-            and isinstance(replica_fft_conj, cplx.CArray)
-            and isinstance(replica_fft_conj.re, np.ndarray)
-            and getattr(blocks, "ndim", 0) == 2):
-        from . import pallas_caf
-        kern = fused_dispatch(blocks.shape[-1], replica_fft_conj.re.shape[0])
-        if kern == "v3":
-            return pallas_caf.caf_accumulate_fused_v3(
-                blocks, replica_fft_conj, freqs, sample_rate,
-                precision=resolve_acq_precision(precision, "v3"))
-        if kern == "v2":
-            return pallas_caf.caf_accumulate_fused_v2(
-                blocks, replica_fft_conj, freqs, sample_rate,
-                precision=resolve_acq_precision(precision, "v2"))
-        if kern == "v1":
-            return pallas_caf.caf_accumulate_fused(
-                blocks, replica_fft_conj, freqs, sample_rate,
-                precision=resolve_acq_precision(precision, "v1"))
     p = caf_surface(blocks, replica_fft_conj, freqs, sample_rate)
     return jnp.sum(p, axis=0)
 
@@ -200,9 +107,9 @@ def pcf_profitable(n: int, n_blocks: int, sample_rate: float,
     PCF wins when the FFT bin spacing fs/n is COARSE relative to the
     Doppler span (GPS: 1 kHz bins, 15 coarse shifts replace 71 bins).
     For long blocks the bins are already fine (Galileo E1B 16k @ 4 ms:
-    250 Hz), the coarse axis balloons (57 bins x sets x fine = 342 rows
-    vs 71), and PCF LOSES — measured 28 ms vs 5.3 ms on v5e. Compare
-    inverse-DFT row counts, the dominant cost either way.
+    250 Hz) and the coarse axis balloons (57 bins x sets x fine x groups
+    = 684 rows vs 71 x 10 blocks = 710): there the two are close. The
+    rule compares inverse-DFT row counts, the dominant cost either way.
     """
     bin_hz = sample_rate / n
     n_c = 2 * int(np.floor(max_doppler_hz / bin_hz)) + 1
@@ -240,25 +147,7 @@ def caf_accumulate_pcf(blocks, replica_fft_conj, sample_rate: float,
     blocks: (n_blocks, n) one code period each; n_blocks % n_groups == 0.
     Returns float32 (n_prn, n_coarse*n_sets*n_fine, n); the Doppler value
     of axis-1 index i is pcf_doppler_hz(...)[i].
-
-    On TPU with host-resident replica planes, dispatches to the fused
-    Pallas path (`pallas_caf.caf_accumulate_pcf_fused`) — one v3-kernel
-    call per (set, fine) row over coarse-shifted replica channels.
     """
-    if (jax.default_backend() == "tpu"
-            and isinstance(replica_fft_conj, cplx.CArray)
-            and isinstance(replica_fft_conj.re, np.ndarray)
-            and getattr(blocks, "ndim", 2) == 2):
-        from . import pallas_caf
-        nprn = replica_fft_conj.re.shape[0]
-        nn = (blocks.shape[-1] if hasattr(blocks, "shape")
-              else np.shape(blocks)[-1])
-        if pallas_caf.supported_pcf(nn, nprn):
-            return pallas_caf.caf_accumulate_pcf_fused(
-                blocks, replica_fft_conj, sample_rate,
-                max_doppler_hz=max_doppler_hz, n_sets=n_sets,
-                fine_hz=fine_hz, n_groups=n_groups,
-                precision=resolve_acq_precision(None, "v3"))
     x = cplx.asarray(blocks)
     rep = replica_fft_conj if isinstance(replica_fft_conj, cplx.CArray) \
         else cplx.asarray(replica_fft_conj)
@@ -302,14 +191,21 @@ def caf_accumulate_pcf(blocks, replica_fft_conj, sample_rate: float,
             + jnp.einsum("sfgb,sbk->sfgk", wg_im, mf.re))
     S = cplx.CArray(s_re, s_im)                          # (S, F, G, n)
 
-    # 3. coarse shifts of the replica spectrum: repc[p,c,k] = rep[p,(k-c)%n]
-    k_idx = (np.arange(n)[None, :] - cvals[:, None]) % n   # (C, n)
-    repc = cplx.apply(lambda a: jnp.take(jnp.asarray(a), jnp.asarray(k_idx),
-                                         axis=-1), rep)    # (P, C, n)
+    # 3. coarse shifts. Shifting the replica spectrum by c bins,
+    # rep[p, (k-c) % n] * S[k], is the product rep[p, k] * S[(k+c) % n]
+    # rotated by c bins, whose inverse DFT differs by a phase ramp that
+    # |.|^2 removes. So the shift is taken on S, which is traced and small,
+    # and not on the replica table: a shifted host-constant table is folded
+    # into the executable by XLA (269 MB for Galileo E1B's 16384 lags).
+    k_idx = (np.arange(n)[None, :] + cvals[:, None]) % n   # (C, n)
+    Sc = cplx.apply(lambda a: jnp.moveaxis(
+        jnp.take(a, jnp.asarray(k_idx), axis=-1), -2, 0), S)  # (C,S,F,G,n)
 
     # 4. product -> inverse -> |.|^2 -> non-coherent sum over groups
-    prod = cplx.mul(cplx.apply(lambda a: a[:, :, None, None, None, :], repc),
-                    cplx.apply(lambda a: a[None, None], S))
+    prod = cplx.mul(
+        cplx.apply(lambda a: jnp.asarray(a)[:, None, None, None, None, :],
+                   rep),
+        cplx.apply(lambda a: a[None], Sc))
     pwr = fftcore.ifft_power_p(prod)        # (P, C, S, F, G, n)
     surf = jnp.sum(pwr, axis=-2)            # (P, C, S, F, n)
     n_prn = surf.shape[0]

@@ -1,6 +1,6 @@
 """PRN spreading-code generation and resampling.
 
-TPU-native equivalent of `sdrcode.c` (gencode dispatch :598-623) and `rescode`
+Device-side equivalent of `sdrcode.c` (gencode dispatch :598-623) and `rescode`
 (sdrcmn.c:527-579). Codes are generated once on the host from the published
 LFSR definitions (IS-GPS-200 for L1 C/A, GLONASS ICD for the 511-chip G1
 sequence), cached, and shipped to device as +/-1 float tables; resampling to
@@ -17,7 +17,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..utils import constants as C
-from . import fftcore
 
 # IS-GPS-200 G2 phase-selector tap pairs (1-indexed) for PRN 1..32.
 _GPS_G2_TAPS = [
@@ -284,7 +283,7 @@ def sampled_code_fft_conj(code_table: np.ndarray, code_freq_hz: float,
     """
     codes = jnp.asarray(code_table, dtype=jnp.float32)
     sampled = resample_code(codes, code_freq_hz, sample_rate_hz, n_samples)
-    return jnp.conj(fftcore.fft(sampled.astype(jnp.complex64)))
+    return jnp.conj(jnp.fft.fft(sampled.astype(jnp.complex64)))
 
 
 def resample_code_np(code_table: np.ndarray, code_freq_hz: float,
@@ -302,10 +301,10 @@ def sampled_code_fft_conj_host(code_table: np.ndarray, code_freq_hz: float,
                                n_samples: int) -> tuple[np.ndarray, np.ndarray]:
     """Host-precomputed conj(FFT(sampled code)) as (re, im) float32 planes.
 
-    The TPU-native replica table: computed once at init on the host with
-    numpy (mirroring the one-shot precompute of sdrinit.c:431-442) and fed
-    to jitted planar kernels as embedded constants — device arrays never
-    cross back to host during lowering, and no complex dtype reaches TPU.
+    The replica table: computed once at init on the host with numpy
+    (mirroring the one-shot precompute of sdrinit.c:431-442) and fed to
+    jitted planar kernels as embedded constants — device arrays never
+    cross back to host during lowering.
     """
     sampled = resample_code_np(np.asarray(code_table, np.float32),
                                code_freq_hz, sample_rate_hz, n_samples)

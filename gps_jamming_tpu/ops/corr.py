@@ -1,7 +1,7 @@
 """Correlation kernels: circular FFT correlation, full linear cross-correlation,
 and sub-sample peak interpolation.
 
-TPU-native equivalents of:
+Batched equivalents of:
 - `sdrcmn.c:124-147` (`cpxconv`: FFT circular correlation -> |.|^2 power),
   the reference's acquisition engine,
 - `scipy.signal.correlate(sig1, sig0, mode='full')` as used by
@@ -10,7 +10,7 @@ TPU-native equivalents of:
   (integer-lag argmax only, `triangulateTDOA.py:89`) and BASELINE.md requires.
 
 All kernels are batched jnp.fft — acquisition across (PRN x Doppler) and TDOA
-across antenna pairs run as one large batched FFT on the MXU/VPU.
+across antenna pairs run as one large batched FFT.
 """
 from __future__ import annotations
 
@@ -90,7 +90,7 @@ def xcorr_peak_lag(a, b,
 
     Integer part matches the reference TDOA (`triangulateTDOA.py:86-89`);
     the fractional part is the parabolic refinement required by BASELINE.md.
-    Accepts complex or CArray inputs (planar path is TPU-safe).
+    Accepts complex or CArray inputs.
     """
     nb = b.shape[-1]
     c = xcorr_full_p(cplx.asarray(a), cplx.asarray(b))

@@ -1,6 +1,6 @@
 """Geodetic conversions and topocentric geometry.
 
-TPU-native equivalents of `sdrpvt.c:416-438` (ecef2lla iterative),
+Array equivalents of `sdrpvt.c:416-438` (ecef2lla iterative),
 `sdrpvt.c:845-967` (togeod/topocent az/el), `add_jammer_and_mix.py:14-24`
 (lla2ecef), `triangulateRSSI.py:42-52` (small-offset meters<->degrees) and the
 haversine distance used by the accuracy harness (`helpers/analyze_position.py`).

@@ -67,13 +67,13 @@ def int8_interleaved_to_complex(x8: jax.Array) -> jax.Array:
 
 def uint8_np_to_int8(raw: np.ndarray) -> np.ndarray:
     """Host edge conversion: RTL-SDR uint8 bytes -> int8 (x - 128), zero-copy
-    via XOR of the sign bit. TPU runtimes that lack a uint8 path take int8
-    fine; this is the only byte-domain work left on the host.
+    via XOR of the sign bit; this is the only byte-domain work left on the
+    host.
     """
     return (raw ^ 0x80).view(np.int8)
 
 
-_DEINT_ROW = 256                 # bytes per row of the MXU deinterleave
+_DEINT_ROW = 256                 # bytes per row of the matmul deinterleave
 
 
 @functools.lru_cache(maxsize=1)
@@ -100,12 +100,11 @@ def int8_to_planar(x8: jax.Array, *, convention: str = "centered"):
         raise ValueError(f"unknown convention {convention!r}")
     n = x8.shape[-1] // 2
     if x8.shape[-1] % _DEINT_ROW == 0:
-        # MXU deinterleave: cast to f32 (well-tiled elementwise), reshape to
-        # 256-byte rows, and split even/odd lanes by two 0/1 selection
-        # matmuls — the systolic array doubles as the shuffle engine. Exact
-        # (int8 values and single-term sums are exact even in bf16), and
-        # measured 4.7x faster than the int16-bitcast path on v5e (131 us vs
-        # 610 us per 512k samples; within 4% of a pre-split planar input).
+        # matmul deinterleave: cast to f32, reshape to 256-byte rows, and
+        # split even/odd lanes by two 0/1 selection matmuls. Exact (int8
+        # values and single-term sums are exact even in bf16 or TF32).
+        # Chosen for an earlier accelerator's matrix unit; not measured on
+        # H100.
         si, sq = _deinterleave_mats()
         rows = x8.astype(jnp.float32).reshape(
             x8.shape[:-1] + (x8.shape[-1] // _DEINT_ROW, _DEINT_ROW))
@@ -118,8 +117,8 @@ def int8_to_planar(x8: jax.Array, *, convention: str = "centered"):
     else:
         # Fallback for sizes that don't fill 256-byte rows: bitcast adjacent
         # (I, Q) byte pairs to int16 lanes and extract the low/high bytes
-        # with arithmetic shifts (little-endian: low byte = I). Still avoids
-        # int8 strided gathers (pathological on TPU).
+        # with arithmetic shifts (little-endian: low byte = I), avoiding
+        # int8 strided gathers.
         pairs = x8.reshape(x8.shape[:-1] + (n, 2))
         v = jax.lax.bitcast_convert_type(pairs, jnp.int16)
         eight = jnp.int16(8)
@@ -150,10 +149,10 @@ def frame(x: jax.Array, frame_len: int, hop: int) -> jax.Array:
     n = x.shape[-1]
     n_frames = 1 + (n - frame_len) // hop
     if frame_len % hop == 0:
-        # Gather-free path: TPU gathers serialize, so build the overlapped
-        # frames from `r = frame_len//hop` static slices of the hop-reshaped
-        # signal (frames[i] = concat(b2d[i], ..., b2d[i+r-1])). ~40x faster
-        # than jnp.take on a 512k-sample Welch frame on v5e.
+        # Gather-free path: build the overlapped frames from
+        # `r = frame_len//hop` static slices of the hop-reshaped signal
+        # (frames[i] = concat(b2d[i], ..., b2d[i+r-1])). Chosen where
+        # gathers serialized; not measured on H100.
         r = frame_len // hop
         b2d = x[..., : (n // hop) * hop].reshape(
             x.shape[:-1] + (n // hop, hop))

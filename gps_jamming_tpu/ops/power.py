@@ -1,6 +1,6 @@
 """Chunked power estimation and threshold detection primitives.
 
-TPU-native replacement for the reference's host loops:
+Batched replacement for the reference's host loops:
 - power pre-scan `worker.py:198-275` (32768-sample chunks, mean I^2+Q^2,
   5th-percentile baseline, +6 dB ITU-R threshold, contiguous range extract),
 - standalone detector `checkIfJamming.py:7-67` (131072-byte chunks vs a fixed
@@ -34,7 +34,7 @@ def chunk_power(iq: jax.Array, chunk_samples: int) -> jax.Array:
 
 
 def chunk_power_p(x: cplx.CArray, chunk_samples: int) -> jax.Array:
-    """Planar chunk-power core (TPU path)."""
+    """Planar chunk-power core (the device path)."""
     power = cplx.abs2(x)
     n = power.shape[-1]
     n_full = n // chunk_samples

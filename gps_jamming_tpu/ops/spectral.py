@@ -1,6 +1,6 @@
 """Welch PSD and spectrogram kernels.
 
-TPU-native replacement for the reference's `scipy.signal.welch` usage
+Device replacement for the reference's `scipy.signal.welch` usage
 (`skrypty/widmo_plot.py:48-53`: nperseg=1024, two-sided, hann, 50% overlap,
 density scaling, then fftshift + 10*log10). Implemented as batched jnp.fft so
 XLA tiles the FFTs and fuses the windowing/scaling elementwise ops.
@@ -17,12 +17,6 @@ import numpy as np
 
 from . import cplx, fftcore
 from .iq import frame, remove_dc
-
-
-# gate for the fused Pallas Welch kernel (see welch_psd_p notes);
-# the first TPU dispatch probes the runtime and falls back to the XLA
-# path if the kernel is rejected (pallas_psd.runtime_supported)
-PSD_FUSED = True
 
 
 @functools.lru_cache(maxsize=16)
@@ -48,24 +42,7 @@ def welch_psd(iq: jax.Array, sample_rate: float, nperseg: int = 1024,
 
 def welch_psd_p(x: cplx.CArray, sample_rate: float, nperseg: int = 1024,
                 overlap_frac: float = 0.5, detrend: bool = True) -> jax.Array:
-    """Planar-complex Welch core (TPU path: no complex dtype on device).
-
-    TPU fast path (`PSD_FUSED`, on by default): 1-D inputs with 50%
-    overlap dispatch to the fused Pallas kernel
-    (`pallas_psd.welch_psd_fused`) — one VMEM-resident pass instead of
-    ~6-8 HBM round-trips of the framed tensor (measured 0.164 ms vs
-    0.199 ms XLA for a 512k block on v5e). The first TPU dispatch
-    probes the runtime (`pallas_psd.runtime_supported`) because some
-    runtime builds reject the kernel at execution; on rejection this
-    path is skipped for the process. Parity-tested in interpret mode
-    (tests/test_pallas_psd.py) and against scipy on TPU.
-    """
-    if (PSD_FUSED and jax.default_backend() == "tpu" and x.re.ndim == 1
-            and overlap_frac == 0.5 and x.shape[-1] >= 2 * nperseg):
-        from . import pallas_psd
-        if pallas_psd.supported(nperseg) and pallas_psd.runtime_supported():
-            return pallas_psd.welch_psd_fused(x, sample_rate, nperseg,
-                                              detrend)
+    """Planar-complex Welch core (the device path of `welch_psd`)."""
     hop = int(nperseg * (1.0 - overlap_frac))
     win = jnp.asarray(_hann(nperseg))
     segs = cplx.apply(lambda a: frame(a, nperseg, hop), x)

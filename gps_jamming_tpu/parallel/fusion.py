@@ -10,14 +10,13 @@ The multi-chip formulation of the detection/localization chain (SURVEY.md
 - per-shard chunk power maps, all-gathered along time to form the full-file
   F1 power profile;
 - PSD fusion across antennas via psum (mean) — replacing the reference's
-  HTTP fan-in of per-receiver telemetry (sdrout.c:10-57) with an ICI
+  HTTP fan-in of per-receiver telemetry (sdrout.c:10-57) with a device
   collective.
 
 All entry points are shard_map-under-jit over an explicit Mesh, and the
 device math is planar-complex (ops.cplx.CArray) through ops.fftcore — the
-same MXU-matmul DFT path as the single-chip kernels — so the sharded
-pipeline runs on TPU runtimes without a complex dtype or FFT HLO. Complex
-inputs are split into (re, im) planes at the host edge.
+same FFT path as the single-device kernels. Complex inputs are split into
+(re, im) planes at the host edge.
 """
 from __future__ import annotations
 
@@ -60,7 +59,7 @@ def sharded_psd_and_power(blocks, mesh, sample_rate: float,
     """Fused sharded pipeline over a (n_antenna, n_blocks, block_len) capture.
 
     `blocks` may be a complex array (split to planes at the host edge) or a
-    planar cplx.CArray of (re, im) float32 planes (the TPU-native input).
+    planar cplx.CArray of (re, im) float32 planes.
 
     Returns:
       psd_fused: (nperseg,) antenna-mean, time-mean Welch PSD (replicated);
@@ -117,7 +116,6 @@ def sharded_psd_and_power(blocks, mesh, sample_rate: float,
 
 def sharded_caf_acquire(blocks, mesh, replica_fft_conj: cplx.CArray,
                         doppler_hz: np.ndarray, sample_rate: float, *,
-                        precision: str | None = None,
                         method: str = "std",
                         max_doppler_hz: float = 7000.0,
                         group_blocks: int | None = None):
@@ -125,8 +123,8 @@ def sharded_caf_acquire(blocks, mesh, replica_fft_conj: cplx.CArray,
 
     The multi-chip form of the acquisition search (the reference's
     `sdraqcuisition` intg-fold loop, sdracq.c:15-27): each time shard
-    accumulates CAF power over its local integration blocks (one fused
-    Pallas kernel per shard on TPU), `psum` along TIME completes the
+    accumulates CAF power over its local integration blocks, `psum`
+    along TIME completes the
     non-coherent integration, and `all_gather` along ANTENNA exposes every
     antenna's surface on every device — the collective that replaces the
     reference's per-receiver HTTP fan-in (worker.py:567-611 + sdrout.c:10-57)
@@ -155,8 +153,7 @@ def sharded_caf_acquire(blocks, mesh, replica_fft_conj: cplx.CArray,
         CArray; block_len must be a multiple of the replica length (each
         code period is one integration block).
       mesh: ('antenna', 'time') Mesh (parallel.mesh.make_mesh).
-      replica_fft_conj: (n_prn, n_code) conj(FFT(replica)) CArray with
-        HOST numpy planes (keeps the per-shard fused-Pallas dispatch).
+      replica_fft_conj: (n_prn, n_code) conj(FFT(replica)) CArray.
       doppler_hz: (n_freq,) numpy Doppler bins (method='std' only).
 
     Returns float32 (n_antenna, n_prn, n_freq, n_code), replicated across
@@ -186,7 +183,7 @@ def sharded_caf_acquire(blocks, mesh, replica_fft_conj: cplx.CArray,
                 n_groups=x2.shape[0] // gb)
         else:
             surf = caf_ops.caf_accumulate(x2, replica_fft_conj, doppler_hz,
-                                          sample_rate, precision=precision)
+                                          sample_rate)
         surf = jax.lax.psum(surf, TIME_AXIS)           # (n_prn, nf, n_code)
         return jax.lax.all_gather(surf, ANTENNA_AXIS)  # (n_ant, ...)
 
@@ -200,7 +197,7 @@ def sharded_pair_xcorr(slices, mesh, nfft: int | None = None):
     """All-pairs FFT cross-correlation with antenna-sharded inputs.
 
     The TDOA fusion path on a mesh: per-antenna aligned slices live
-    sharded along ANTENNA; one `all_gather` over ICI makes the full
+    sharded along ANTENNA; one `all_gather` makes the full
     antenna set local, then every device evaluates the batched
     freq-domain correlation r_ij = IFFT(FFT(a_i) * conj(FFT(a_j))) for
     all i<j pairs (models/tdoa.py `pair_lags` math, zero-padded to 2L so

@@ -3,7 +3,7 @@
 The distributed backbone the reference lacks (SURVEY.md §2.3): instead of one
 pthread per satellite channel and HTTP loopback between processes, the
 framework lays captures out on a `jax.sharding.Mesh` with named axes
-('antenna', 'time') and lets XLA insert ICI/DCN collectives.
+('antenna', 'time') and lets XLA insert the collectives (NCCL on GPUs).
 
 - antenna axis: one shard per antenna stream (multi-SDR captures,
   worker.py:613-627's test1..3.bin pattern) — fusion via psum/all_gather.
@@ -69,8 +69,8 @@ def init_distributed(coordinator_address: str | None = None,
     fabric is loopback HTTP JSON, sdrout.c:7-8): one process per host, each
     seeing its local chips; after init, `jax.devices()` is the global device
     list and `multihost_mesh` lays ('antenna', 'time') over (hosts x chips)
-    so antenna fusion (psum/all_gather) rides ICI within a host and DCN
-    across hosts. No-ops (returns False) when already initialized or when
+    so antenna fusion (psum/all_gather) rides the fast links within a host
+    and the network across hosts. No-ops (returns False) when already initialized or when
     running single-process with no coordinator configured — single-host
     paths call this unconditionally.
     """
@@ -93,7 +93,8 @@ def multihost_mesh(n_antenna: int | None = None) -> Mesh:
 
     Default layout: antenna axis = hosts (each antenna's SDR stream is
     captured/ingested by one host, so per-antenna work stays host-local and
-    only the fused reductions cross DCN), time axis = chips within a host.
+    only the fused reductions cross hosts), time axis = devices within a
+    host.
     """
     devices = jax.devices()
     if n_antenna is None:

@@ -13,7 +13,7 @@ provides both measurements as a library + the CLI `benchmark` verb:
   Each mesh size runs in a subprocess because the device count must be
   fixed before the JAX backend initializes
   (`--xla_force_host_platform_device_count` for the virtual CPU mesh; on a
-  real multi-chip host, pass platform='tpu' to use the local chips).
+  multi-GPU host, pass platform='gpu' to use the local cards).
 """
 from __future__ import annotations
 
@@ -54,8 +54,8 @@ def _slope_time(fn, *args, n_lo=2, n_hi=12, reps=3) -> float:
 def single_chip() -> dict:
     """Flagship detection+acquisition chain throughput on this backend."""
     import bench as _bench_mod  # repo-root bench.py when run from checkout
-    jfn, raw, n_block = _bench_mod._build_tpu_chain()
-    msps = _bench_mod._time_tpu(jfn, raw, n_block)
+    jfn, raw, n_block = _bench_mod._build_chain()
+    msps = _bench_mod._time_chain(jfn, raw, n_block)
     import jax
     return {"metric": "iq_detect_acquire_throughput",
             "backend": jax.default_backend(),
@@ -67,7 +67,10 @@ def _bench_capture(system: str, seconds: float, seed: int = 5):
     (host-side, excluded from timing): GPS 2.048 MS/s (sdrinit.c:11-13),
     GLONASS 10 MS/s (sdrinit.c:6-9), Galileo E1B BOC at 4.096 MS/s
     (>= 2 samples per half-chip; the reference's 2.048 MS/s undersamples
-    BOC(1,1) — this framework's receiver needs the honest rate)."""
+    BOC(1,1) — this framework's receiver needs the honest rate).
+
+    Returns (complex64 samples, sample rate, per-satellite truths,
+    receiver ECEF position)."""
     from ..models.receiver import lnav
     from ..models.receiver import pvt as pvt_mod
     from ..sim import constellation
@@ -88,17 +91,17 @@ def _bench_capture(system: str, seconds: float, seed: int = 5):
     if system == "gps":
         fs = 2.048e6
         n = int(seconds * fs)
-        sig, _, _ = constellation.simulate_constellation(
+        sig, truths, rx_ecef = constellation.simulate_constellation(
             kepler_shell(24, np.sqrt(26_560_000.0), 2400, 0.958),
             rx_lla, toe - 1.3, n, fs, noise_std=0.35, seed=seed)
-        return sig.astype(np.complex64), fs
+        return sig.astype(np.complex64), fs, truths, rx_ecef
     if system == "galileo":
         fs = 4.096e6
         n = int(seconds * fs)
-        sig, _, _ = constellation.simulate_galileo_constellation(
+        sig, truths, rx_ecef = constellation.simulate_galileo_constellation(
             kepler_shell(24, np.sqrt(29_600_000.0), 1340, 0.975),
             rx_lla, toe + 30.0, n, fs, noise_std=0.35, seed=seed)
-        return sig.astype(np.complex64), fs
+        return sig.astype(np.complex64), fs, truths, rx_ecef
     if system == "glonass":
         from ..models.receiver import glonass as glo
         fs = 10.0e6
@@ -132,9 +135,9 @@ def _bench_capture(system: str, seconds: float, seed: int = 5):
                 freq_ch=i - 2, tb_s=27000.0, tk_s=0.0, pos_m=tuple(pos),
                 vel_mps=tuple(vel), acc_mps2=(0.0, 0.0, 0.0),
                 tau_s=(i - 2) * 4e-6, gamma=0.0))
-        sig, _, _ = constellation.simulate_glonass_constellation(
+        sig, truths, rx_ecef = constellation.simulate_glonass_constellation(
             sats, rx_lla, 27030.0, n, fs, noise_std=0.35, seed=seed)
-        return sig.astype(np.complex64), fs
+        return sig.astype(np.complex64), fs, truths, rx_ecef
     raise ValueError(f"unknown system {system!r}")
 
 
@@ -160,7 +163,7 @@ def receiver_chain(system: str = "gps", seconds: float = 6.0,
     from ..ops import cplx, iq as iq_ops
     from . import rx_stream
 
-    sig, fs = _bench_capture(system, seconds)
+    sig, fs, _, _ = _bench_capture(system, seconds)
     n = sig.shape[-1]
     rx = rx_stream.StreamingReceiver(fs, system=system,
                                      segment_s=segment_s,
@@ -255,9 +258,9 @@ def scaling_worker(n_devices: int, include_caf: bool = True) -> dict:
 
     fs = 2.048e6
     n_code = 2048                       # one C/A period at 2.048 MS/s
-    on_tpu = jax.default_backend() == "tpu"
-    n_prn = 32 if on_tpu else 8         # CPU-mesh plumbing stays quick
-    dopp = caf_ops.doppler_bins(7000.0, 1000.0 if not on_tpu else 200.0)
+    on_cpu = jax.default_backend() == "cpu"
+    n_prn = 8 if on_cpu else 32         # CPU-mesh plumbing stays quick
+    dopp = caf_ops.doppler_bins(7000.0, 1000.0 if on_cpu else 200.0)
     rep = cplx.CArray(*codes.sampled_code_fft_conj_host(
         codes.gps_ca_table()[:n_prn], 1.023e6, fs, n_code))
 
@@ -324,6 +327,7 @@ def weak_scaling(device_counts: list[int], platform: str = "cpu"
     if platform == "cpu":
         for r in rows:
             r["note"] = ("virtual CPU mesh: devices share one host's cores, "
-                         "so efficiency measures host contention, not ICI; "
-                         "use --platform tpu on multi-chip hardware")
+                         "so efficiency measures host contention, not the "
+                         "interconnect; use --platform gpu on multi-GPU "
+                         "hardware")
     return rows

@@ -517,7 +517,7 @@ def analyze_capture(paths: Sequence[str],
             try:
                 td = tdoa.localize_files(paths, antenna_positions, fs,
                                          cfg=cfg.tdoa)
-            except Exception:
+            except ValueError:         # no onset above the TDOA threshold
                 td = None
         else:
             caps = [(iq_ops.read_iq_file(p, convention="normalized"))
@@ -528,7 +528,7 @@ def analyze_capture(paths: Sequence[str],
             try:
                 td = tdoa.localize(caps_c, antenna_positions, fs,
                                    cfg=cfg.tdoa)
-            except Exception:
+            except ValueError:         # no onset above the TDOA threshold
                 td = None
 
     return AnalysisResult(

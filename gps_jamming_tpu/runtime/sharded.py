@@ -13,7 +13,7 @@ Mesh layout: ('antenna', 'time') with the antenna axis sized to the
 number of capture files (the reference's 1-3 RTL-SDR receivers,
 ui_mainwindow.py:633-651) and the time axis soaking up the remaining
 devices — each antenna's stream is split into time shards whose PSD /
-power / CAF partials are fused with psum/all_gather over ICI, replacing
+power / CAF partials are fused with psum/all_gather, replacing
 the reference's per-receiver HTTP fan-in (sdrout.c:10-57).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Physical and GNSS constants.
 
-TPU-native reimplementation of the constants scattered through the reference
+Reimplementation of the constants scattered through the reference
 (`/root/reference/GpsJammerApp/backend/sdr.h`, `skrypty/triangulateRSSI.py:8-20`,
 `skrypty/triangulateTDOA.py:13-29`). Single source of truth for the framework.
 """

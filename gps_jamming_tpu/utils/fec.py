@@ -6,7 +6,7 @@ generator polynomials are the CCSDS/Galileo pair G1=171o, G2=133o; Galileo
 E1B additionally INVERTS the second branch (ICD 4.1.4), controlled by
 `invert_g2`. Vectorized over the 64-state trellis so decoding a 240-symbol
 page is a handful of numpy ops per step (host-side: bit-rate work stays
-off the TPU per SURVEY.md §7).
+off the device per SURVEY.md §7).
 """
 from __future__ import annotations
 

@@ -1,21 +1,24 @@
-"""MXU (matmul-DFT) FFT backend vs numpy oracle.
+"""fftcore (the jnp.fft path every DFT takes) vs the numpy oracle.
 
-The production TPU runtime has no FFT HLO; fftcore implements DFT-as-matmul
-(single-stage) and two-stage Cooley-Tukey for large n. These must match
-np.fft to float32 tolerance at every size the framework uses.
+Every size the framework uses must match np.fft to float32 tolerance,
+through both the complex64 and the planar entry points.
 """
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gps_jamming_tpu.ops import fftcore
+from gps_jamming_tpu.ops import cplx, fftcore
 
 
-@pytest.fixture(autouse=True)
-def _mxu_backend():
-    fftcore.set_backend("mxu")
-    yield
-    fftcore.set_backend("auto")
+def _fft(x, n=None):
+    """Planar FFT of a complex numpy array, back to complex."""
+    y = fftcore.fft_p(cplx.asarray(jnp.asarray(x)), n=n)
+    return np.asarray(y.re) + 1j * np.asarray(y.im)
+
+
+def _ifft(x):
+    y = fftcore.ifft_p(cplx.asarray(jnp.asarray(x)))
+    return np.asarray(y.re) + 1j * np.asarray(y.im)
 
 
 def _rand_c(rng, *shape):
@@ -26,7 +29,7 @@ def _rand_c(rng, *shape):
 @pytest.mark.parametrize("n", [64, 1000, 1024, 2048])
 def test_single_stage_matches_numpy(rng, n):
     x = _rand_c(rng, n)
-    got = np.asarray(fftcore.fft(jnp.asarray(x)))
+    got = _fft(x)
     want = np.fft.fft(x)
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-2 * np.sqrt(n))
 
@@ -34,7 +37,7 @@ def test_single_stage_matches_numpy(rng, n):
 @pytest.mark.parametrize("n", [4096, 50000, 131072])
 def test_two_stage_matches_numpy(rng, n):
     x = _rand_c(rng, n)
-    got = np.asarray(fftcore.fft(jnp.asarray(x)))
+    got = _fft(x)
     want = np.fft.fft(x)
     scale = np.abs(want).max()
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-4)
@@ -43,33 +46,33 @@ def test_two_stage_matches_numpy(rng, n):
 def test_ifft_roundtrip(rng):
     for n in (1024, 8192):
         x = _rand_c(rng, n)
-        back = np.asarray(fftcore.ifft(fftcore.fft(jnp.asarray(x))))
+        back = _ifft(_fft(x))
         np.testing.assert_allclose(back, x, atol=1e-3)
 
 
 def test_batched(rng):
     x = _rand_c(rng, 3, 5, 512)
-    got = np.asarray(fftcore.fft(jnp.asarray(x)))
+    got = _fft(x)
     want = np.fft.fft(x, axis=-1)
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=0.3)
 
 
 def test_padding_arg(rng):
     x = _rand_c(rng, 300)
-    got = np.asarray(fftcore.fft(jnp.asarray(x), n=512))
+    got = _fft(x, n=512)
     want = np.fft.fft(x, n=512)
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=0.2)
 
 
 def test_fft_power(rng):
     x = _rand_c(rng, 7, 1024)
-    got = np.asarray(fftcore.fft_power(jnp.asarray(x)))
+    got = np.asarray(fftcore.fft_power_p(cplx.asarray(jnp.asarray(x))))
     want = np.abs(np.fft.fft(x, axis=-1)) ** 2
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=1.0)
 
 
-def test_ops_parity_on_mxu_backend(rng):
-    """Welch PSD and xcorr must stay scipy-accurate through the MXU path."""
+def test_ops_parity_through_fftcore(rng):
+    """Welch PSD and xcorr stay scipy-accurate through fftcore."""
     from scipy import signal as ss
     from gps_jamming_tpu.ops import corr, spectral
     fs = 2.048e6
@@ -86,20 +89,20 @@ def test_ops_parity_on_mxu_backend(rng):
     assert int(lag) == true_lag
 
 
-def test_bf16_precision_mode(rng):
-    """bf16 operand mode: same spectral peaks, bounded relative error."""
-    from gps_jamming_tpu.ops import fftcore
-    x = (rng.standard_normal(1024) + 1j * rng.standard_normal(1024)) \
-        .astype(np.complex64)
-    x += np.exp(2j * np.pi * 0.123 * np.arange(1024)).astype(np.complex64) * 4
-    fftcore.set_backend("mxu")
-    try:
-        ref = np.asarray(fftcore.fft(jnp.asarray(x)))
-        fftcore.set_precision("bf16")
-        lo = np.asarray(fftcore.fft(jnp.asarray(x)))
-    finally:
-        fftcore.set_precision("f32")
-        fftcore.set_backend("auto")
-    assert np.argmax(np.abs(ref)) == np.argmax(np.abs(lo))
-    rel = np.abs(lo - ref).max() / np.abs(ref).max()
-    assert rel < 2e-2, rel
+@pytest.mark.parametrize("fn,oracle", [
+    ("fft_p", lambda x: np.fft.fft(x, axis=-1)),
+    ("ifft_p", lambda x: np.fft.ifft(x, axis=-1)),
+    ("fft_power_p", lambda x: np.abs(np.fft.fft(x, axis=-1)) ** 2),
+    ("ifft_power_p", lambda x: np.abs(np.fft.ifft(x, axis=-1)) ** 2),
+])
+def test_planar_api_matches_numpy(rng, fn, oracle):
+    """The planar entry points every device kernel calls."""
+    x = _rand_c(rng, 4, 2048)
+    got = getattr(fftcore, fn)(cplx.asarray(jnp.asarray(x)))
+    if isinstance(got, cplx.CArray):
+        got = np.asarray(got.re) + 1j * np.asarray(got.im)
+    want = oracle(x.astype(np.complex128))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(np.asarray(got) / scale, want / scale,
+                               atol=1e-5)
+

@@ -65,7 +65,7 @@ def test_pad_to_multiple():
 
 
 def test_int8_to_planar_mxu_path(rng):
-    # 2n a multiple of 256 -> MXU matmul deinterleave path
+    # 2n a multiple of 256 -> matmul deinterleave path
     raw = _raw(rng, n=1024)
     x8 = iq.uint8_np_to_int8(raw.copy())
     want = raw.astype(np.float32) - 127.5
@@ -81,7 +81,7 @@ def test_int8_to_planar_mxu_path(rng):
 
 
 def test_int8_to_planar_fallback_path(rng):
-    # 2n NOT a multiple of 256 -> bitcast fallback; must agree with MXU path
+    # 2n NOT a multiple of 256 -> bitcast path; must agree with the matmul path
     raw = _raw(rng, n=100)
     x8 = iq.uint8_np_to_int8(raw.copy())
     got = iq.int8_to_planar(jnp.asarray(x8))

@@ -355,7 +355,7 @@ def test_native_quantpack_matches_numpy():
 def test_wire_auto_resolution(tmp_path):
     """wire_bits='auto' resolves by raw byte rate: lossless 8-bit for
     GPS/Galileo (4.1/8.2 MB/s), 2-bit packing for GLONASS (20 MB/s) —
-    the tunneled-link policy documented in process_file."""
+    the link policy documented in process_file."""
     rng = np.random.default_rng(8)
     path = str(tmp_path / "noise.bin")
     rng.integers(0, 256, 1 << 16, dtype=np.uint8).tofile(path)

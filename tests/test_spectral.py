@@ -1,9 +1,10 @@
 """Welch PSD parity vs scipy.signal.welch (widmo_plot.py:48 contract)."""
 import numpy as np
 import jax.numpy as jnp
+import pytest
 from scipy import signal as ss
 
-from gps_jamming_tpu.ops import spectral
+from gps_jamming_tpu.ops import cplx, spectral
 
 
 def test_welch_matches_scipy(rng):
@@ -16,6 +17,20 @@ def test_welch_matches_scipy(rng):
     want_f, want = ss.welch(x, fs, nperseg=1024, return_onesided=False)
     got = np.asarray(spectral.welch_psd(jnp.asarray(x), fs, nperseg=1024))
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-12)
+
+
+@pytest.mark.parametrize("n", [1 << 17, 100_000, 16_384, 131_772])
+def test_welch_planar_matches_scipy_at_block_sizes(n, rng):
+    """welch_psd_p on noise at the sizes the detect chain frames, including
+    lengths that leave a partial last segment."""
+    fs = 2.048e6
+    x = (rng.standard_normal(n)
+         + 1j * rng.standard_normal(n)).astype(np.complex64)
+    _, want = ss.welch(x.astype(np.complex128), fs, nperseg=1024,
+                       return_onesided=False)
+    got = np.asarray(spectral.welch_psd_p(cplx.asarray(jnp.asarray(x)), fs,
+                                          1024))
+    np.testing.assert_allclose(got, want, rtol=2e-5)
 
 
 def test_psd_db_shifted_matches_reference_chain(rng):
